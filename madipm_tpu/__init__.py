@@ -1,14 +1,15 @@
-"""madipm_tpu — TPU-native Mehrotra predictor-corrector LP/QP solver.
+"""madipm_tpu — Mehrotra predictor-corrector LP/QP solver in JAX.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of
-klamike/MadIPM.jl (GPU interior-point solver for linear and convex quadratic
-programs), re-designed TPU-first:
+A from-scratch JAX/XLA framework with the capabilities of klamike/MadIPM.jl
+(GPU interior-point solver for linear and convex quadratic programs), built
+on dense batched linear algebra:
 
 - the whole IPM iteration (KKT assembly, factorization, predictor/corrector
   solves, step lengths, barrier update) is one fused XLA program over padded
   dense arrays driven by ``lax.while_loop``;
 - the per-iteration direct factorization (the reference's cuDSS role) is a
-  dense blocked Cholesky/LDL' on the MXU with fp64 iterative refinement;
+  dense fp64 Cholesky (cuSOLVER on the GPU) or a blocked LDL', with an
+  optional fp32-factor + fp64-refinement route;
 - scaling comes from ``vmap``/``shard_map`` batched solves and
   Schur-complement-partitioned KKT systems over a ``jax.sharding.Mesh``
   (parallel/), capabilities the single-device reference lacks.

@@ -1,6 +1,6 @@
 """Top-level solver API.
 
-``madipm(model, **options)`` — the TPU-native analogue of the reference's
+``madipm(model, **options)`` — the JAX analogue of the reference's
 ``madipm(m; kwargs...)`` entry point (reference: src/solver.jl:420-428):
 construct the solver from a problem model, run the Mehrotra
 predictor-corrector loop, and return execution statistics.
@@ -35,18 +35,15 @@ from .utils.status import Status
 def _ensure_x64():
     if not jax.config.jax_enable_x64:
         jax.config.update("jax_enable_x64", True)
-    # TPU fp32 matmuls default to single-pass bf16 on the MXU (~8 mantissa
-    # bits) — fatal for the fp32 Cholesky factor + refinement loop.  HIGHEST
-    # selects the multi-pass scheme with true fp32 accuracy.
+    # fp32 matmuls may default to reduced-precision passes (TF32 tensor
+    # cores on the GPU, ~10 mantissa bits) — fatal for the fp32 Cholesky
+    # factor + refinement loop.  HIGHEST keeps true fp32 accuracy.
     if jax.config.jax_default_matmul_precision is None:
         jax.config.update("jax_default_matmul_precision", "highest")
     # Persistent compilation cache: repeated solves of same-shape problems
     # (the benchmark sweep pattern, scripts/benchmarks_cpu.jl:15-58) skip
     # recompilation across processes.
     if not jax.config.jax_compilation_cache_dir:
-        # Key the cache by backend AND machine fingerprint: entries
-        # AOT-compiled on a host with different CPU features are not safe
-        # to load here (utils/cache.py).
         from .utils.cache import configure_cache
 
         configure_cache(jax)

@@ -10,12 +10,12 @@ Capability match with the reference's problem layer:
   (reference: src/utils.jl:345-505): slacks for inequality rows, ranged upper
   bounds moved into extra equality rows ``x + w = xu``, fixed variables kept.
 - ``DeviceQP`` replaces the CUDA device model (reference:
-  ext/MadIPMCUDAExt/MadIPMCUDAExt.jl:122-137) with a TPU-first representation:
-  dense (MXU-friendly) padded arrays + boolean masks instead of index views.
+  ext/MadIPMCUDAExt/MadIPMCUDAExt.jl:122-137) with a dense representation:
+  padded arrays + boolean masks instead of index views.
 
-The reference keeps data sparse (CSR + cuDSS); TPUs prefer blocked-dense
-matmuls over gather-heavy sparse pointers, so the device format here is dense
-and padded to lane-aligned shapes.  Sparse inputs stay sparse on host
+The reference keeps data sparse (CSR + cuDSS); here the device format is
+dense and padded to aligned shapes, so assembly and matvecs are matmuls
+instead of gather-heavy sparse pointer chasing.  Sparse inputs stay sparse on host
 (scipy.sparse) until the final packing step.
 """
 
@@ -343,11 +343,11 @@ class DeviceQP:
     """Padded, dense, device-resident standard-form QP.
 
     All constraints are equalities ``A x = b``; general bounds ``lb <= x <= ub``
-    with +-inf for absent bounds.  Shapes are padded to multiples of the TPU
-    lane width; ``row_mask``/``col_mask`` flag the live rows/columns.  Fixed
+    with +-inf for absent bounds.  Shapes are padded to multiples of
+    ``pad_multiple``; ``row_mask``/``col_mask`` flag the live rows/columns.  Fixed
     variables (lb == ub) are pinned: they keep their value, contribute to
     ``A x`` and the objective, but are excluded from the KKT system — the
-    TPU-masked analogue of MadNLP's ``MakeParameter`` treatment
+    masked analogue of MadNLP's ``MakeParameter`` treatment
     (reference: src/utils.jl:83, SURVEY §2.4).
     """
 
@@ -363,7 +363,7 @@ class DeviceQP:
     x0: jax.Array  # [n]
     y0: jax.Array  # [m]
     #: Ozaki bf16 slicings of A, A' and Q (ops/ozaki.py) — present only
-    #: when the solver enabled MXU-evaluated fp64 matvecs; built AFTER
+    #: when the solver enabled Ozaki-evaluated fp64 matvecs; built AFTER
     #: row/objective scaling (driver.initialize), since they snapshot the
     #: matrix values.
     A_sl: Optional[object] = None
@@ -424,7 +424,7 @@ class DeviceQP:
         """A' @ y (Ozaki-sliced when enabled and y is fp64).  With shared
         slices (At_sl is None but A_sl present), the transpose runs as the
         m-chunked contraction over the FORWARD slices (ozaki.matvec_t) —
-        no transposed slice copy in HBM."""
+        no transposed slice copy in device memory."""
         if y.dtype == jnp.float64:
             from ..ops import ozaki
 
@@ -438,11 +438,11 @@ class DeviceQP:
                    n_slices=None) -> "DeviceQP":
         """Return a copy carrying Ozaki slicings of A (and A') (ops/ozaki.py).
 
-        ``variant``: "bf16" (7 bf16 slices, fp32 MXU accumulation) or "i8"
-        (8 int8 slices; CPU-only — see ops/ozaki.py measured notes).
+        ``variant``: "bf16" (7 bf16 slices, fp32 accumulation) or "i8"
+        (8 int8 slices, int32 accumulation — see ops/ozaki.py notes).
         ``share_slices=True`` stores only the forward slices and evaluates
         A'-matvecs via the transposed chunked contraction (ozaki.matvec_t)
-        — halves the slice HBM footprint (the m=4096 lever).
+        — halves the slice device-memory footprint.
 
         Must be called AFTER any row/column scaling of A (the slices
         snapshot values).  Requires lane-padded shapes (pad_to_device's
@@ -479,7 +479,7 @@ class DeviceQP:
         """S = A diag(dinv) A' in the factor dtype (no regularization or
         diagonal pinning — the KKT layer applies those uniformly).
 
-        One MXU matmul: (m,n) * (n,) -> (m,n) @ (n,m) (the TPU replacement
+        One matmul: (m,n) * (n,) -> (m,n) @ (n,m) (the dense replacement
         for the reference's sparse row-intersection assembly,
         src/utils.jl:276-308 / ext/MadIPMCUDAExt/cuda_wrapper.jl:108-144).
         """

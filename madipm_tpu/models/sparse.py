@@ -8,7 +8,7 @@ src/utils.jl:276-308; GPU row-intersection kernel
 ext/MadIPMCUDAExt/cuda_wrapper.jl:108-144), and CUSPARSE SpMV operators
 (ext/MadIPMCUDAExt/cuda_wrapper.jl:43-94).
 
-This module is the TPU-native equivalent, built for XLA instead of pointer
+This module is the JAX equivalent, built for XLA instead of pointer
 chasing:
 
 - **ELL storage** (row-padded ``[m, K]`` values + column indices, and the
@@ -25,7 +25,7 @@ chasing:
   full dense ``A`` (m x n) is never materialized — ``n`` can be two orders
   of magnitude larger than the dense path allows.
 
-The factorization of ``S`` (size m) stays dense-blocked on the MXU; this
+The factorization of ``S`` (size m) stays dense (cuSOLVER on the GPU); this
 path targets the tall/sparse regime (n >> m, few nnz per row) typical of
 standard-form LPs.
 
@@ -179,8 +179,7 @@ class SparseDeviceQP:
         The reference's ``assemble_normal_system!`` re-walked row
         intersections per entry; here the host-sorted pair list turns the
         whole assembly into gather -> multiply -> sorted segment_sum -> one
-        static scatter (plus its mirror), all MXU/VPU-friendly with static
-        shapes."""
+        static scatter (plus its mirror), all with static shapes."""
         m = self.m
         flatA = self.A_val.astype(factor_dtype).reshape(-1)
         contrib = (

@@ -1,9 +1,8 @@
 """Recursive blocked Cholesky with explicit inverse factor.
 
-TPU-first replacement for the reference's sparse direct solver role (cuDSS
+Matmul-only alternative to the reference's sparse direct solver role (cuDSS
 CHOLESKY, README.md:87-98): instead of factor + sequential triangular
-solves (which on TPU serialize into latency-bound loops), compute the
-*inverse* Cholesky factor ``Linv = L^-1`` by a statically-unrolled
+solves, compute the *inverse* Cholesky factor ``Linv = L^-1`` by a statically-unrolled
 divide-and-conquer recursion of pure matmuls:
 
     S = [[S11, S21'], [S21, S22]]
@@ -13,11 +12,13 @@ divide-and-conquer recursion of pure matmuls:
     L22 = chol(S22 - L21 L21')           (recurse)
     Linv = [[W1, 0], [-W2 L21 W1, W2]]   (W2 = L22^-1)
 
-Every op above is a matmul on power-of-two tiles -> MXU; the base case is a
-tiny masked Gaussian elimination.  Solves become two matmuls:
+Every op above is a matmul on power-of-two tiles; the base case is a tiny
+masked Gaussian elimination.  Solves become two matmuls:
 ``x = Linv' (Linv b)``, so the per-IPM-iteration predictor/corrector solves
 (reference: src/KKT/normalkkt.jl:196-219 triangular solves) cost two
-MXU matvecs each.  Stability is recovered by the fp64 iterative-refinement
+matvecs each.  Selected by ``LinearSolver.CHOLESKY_INV`` / ``LDL_INV``; the
+default route is ``jnp.linalg.cholesky`` + triangular solves
+(ops/linalg.py).  Stability is recovered by the fp64 iterative-refinement
 wrapper (ops/linalg.refine) around the fp32 factor.
 """
 
@@ -39,21 +40,13 @@ def _tri_inv_base(L):
     N^s = 0).  Then (I - N)^-1 = sum N^i, computed exactly by repeated
     doubling: S_{m+1} = (I + R_m) S_m with R_{m+1} = R_m^2, R_0 = N — only
     2*ceil(log2 s) matmuls and no sequential substitution loops (a forward
-    substitution would cost O(s^2) sequential steps, fatal for TPU latency).
-    Exact in exact arithmetic; used on small/diagonal blocks where the
-    conditioning is mild.
-
-    Every intermediate is kept 2-D (the diagonal as (s,1)/(1,s) via masked
-    reductions, no ``jnp.diagonal``): Mosaic's TPU vector-layout inference
-    cannot represent 1-D vectors, and this function is inlined into the
-    Pallas factorization kernel (ops/pallas_chol.py).
+    substitution would cost O(s^2) sequential steps).  Exact in exact
+    arithmetic; used on small/diagonal blocks where the conditioning is
+    mild.
     """
     s = L.shape[-1]
     if s == 1:
         return 1.0 / L
-    # Identity built from thin iotas, NOT jnp.eye: materialized array
-    # constants are unlowerable inside Pallas TPU kernels (Mosaic aborts),
-    # while broadcast comparisons of (s,1)/(1,s) iotas lower cleanly.
     rows_c = jax.lax.broadcasted_iota(jnp.int32, (s, 1), 0)
     cols_r = jax.lax.broadcasted_iota(jnp.int32, (1, s), 1)
     eye = (rows_c == cols_r).astype(L.dtype)
@@ -74,12 +67,7 @@ def _chol_base(S):
     """Unblocked Cholesky of a small tile via masked Gaussian elimination.
 
     Returns (L, Linv).  NaNs propagate on non-SPD input (failure signal,
-    like jnp.linalg.cholesky).
-
-    2-D-only formulation (column slices stay (s,1), the factor accumulates
-    through one-hot outer products, iotas are 2-D int32): required for
-    inlining into the Pallas TPU kernel — Mosaic cannot lay out 1-D
-    vectors or 64-bit types.  Unrolled (s is a small static size).
+    like jnp.linalg.cholesky).  Unrolled (s is a small static size).
     """
     s = S.shape[-1]
     if s == 1:
@@ -145,8 +133,8 @@ def ldl_inv(S: jax.Array, base: int = _BASE):
     Unpivoted LDL' — valid for IPM-regularized augmented matrices
     [Sigma+Q, A'; A, -delta] (symmetric quasi-definite => strongly
     factorizable, Vanderbei).  Like :func:`chol_inv`, every op is a matmul
-    on static tiles, so solves are two matmuls + a diagonal scale and the
-    whole factorization compiles cleanly on TPU (no lax.linalg).
+    on static tiles, so solves are two matmuls + a diagonal scale (no
+    lax.linalg).
     Replaces the reference's cuDSS ``MadNLP.LDL`` (scripts/benchmarks_gpu.jl:42).
     """
     n = S.shape[-1]

@@ -8,7 +8,7 @@ src/utils.jl:71,110).  Two formulations:
 - **NORMAL** (LP only, like the reference's ``NormalKKTSystem``,
   src/KKT/normalkkt.jl:29-140): condense the augmented system onto the dual
   block and factorize the SPD normal matrix ``S = A Sigma^-1 A' - del_c I``
-  of size m.  On TPU the assembly is one big MXU matmul
+  of size m.  The dense assembly is one big matmul
   ``(A * dinv) @ A.T`` instead of the reference's row-intersection sparse
   kernel (ext/MadIPMCUDAExt/cuda_wrapper.jl:108-234).
 
@@ -23,7 +23,7 @@ kernels and return (dx, dy); bound-multiplier recovery (the reference's
 Padding/masking contract (see models/qp.py): fixed and padded columns are
 excluded by zeroing their ``dinv`` / KKT rows+cols and pinning the diagonal
 to 1; padded constraint rows likewise.  This keeps every factorization
-nonsingular with static shapes — the TPU replacement for the reference's
+nonsingular with static shapes — the dense replacement for the reference's
 index-set views.
 """
 
@@ -38,7 +38,7 @@ from jax import lax
 
 from ..models.qp import DeviceQP
 from ..utils.options import KKTSystem, LinearSolver
-from . import block_chol, linalg, pallas_chol
+from . import block_chol, linalg
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,10 +50,6 @@ class KKTConfig:
     factor_dtype: jnp.dtype
     refinement_steps: int = 2
     max_factor_trials: int = 3  # reference: src/linear_solver.jl:7
-    #: fuse the Cholesky into one Pallas VMEM kernel (TPU only; the plain
-    #: XLA recursion lowers to ~1000 tiny ops whose dispatch overhead
-    #: dominates the factorization at KKT sizes)
-    use_pallas: bool = False
     #: precondition the fp64 PCG with an inner fp32 CG (flexible PCG,
     #: Polak–Ribière).  Measured at the bench shape: the plain fp32-factor
     #: preconditioner already exits the fp64 PCG after 1-2 iterations, so
@@ -84,7 +80,7 @@ class KKTConfig:
     #: M is built from Ŝ + PRECOND_SHIFT·I, so M⁻¹ alone mis-scales
     #: small-eigenvalue directions by λ/(λ+σ) — exactly the weak-tail
     #: contraction that dominates the late IPM iterations; the correction
-    #: cancels the shift error to first order at the cost of one fp32 MXU
+    #: cancels the shift error to first order at the cost of one fp32
     #: m×m matvec + one extra factor application (both ~2 orders cheaper
     #: than the fp64 Ozaki pair a saved PCG iteration avoids).  NORMAL +
     #: low-precision-factor path only.  See IPMOptions.precond_refine.
@@ -100,7 +96,7 @@ class NormalFactors(NamedTuple):
     #                  empty rows, whose normal diagonal would be -del_c <= 0)
     Smat: jax.Array  # the Jacobi-scaled S itself (factor dtype): the cheap
     #                  inner operator of the mixed-precision restarted PCG
-    #                  (one m×m fp32 matmul vs an emulated-fp64 A-pair)
+    #                  (one m×m fp32 matmul vs an fp64 A-pair)
 
 
 class DistNormalFactors(NamedTuple):
@@ -179,7 +175,7 @@ def _assemble_normal(prob: DeviceQP, sigma, del_c, factor_dtype):
     """S = A Sigma^-1 A' - del_c I with degenerate rows pinned to identity.
 
     Assembled directly in the *factor* dtype so the O(m^2 n) matmul runs at
-    full MXU rate when factoring in fp32; the fp64 refinement operator never
+    fp32 rate when factoring in fp32; the fp64 refinement operator never
     materializes S (it applies A twice instead, see solve_condensed).
 
     Pinned ("non-live") rows are the padded rows AND structurally empty real
@@ -192,7 +188,7 @@ def _assemble_normal(prob: DeviceQP, sigma, del_c, factor_dtype):
     """
     free = prob.free_mask
     dinv = jnp.where(free, 1.0 / sigma, 0.0)
-    # Dense: one MXU matmul (m,n)*(n,) @ (n,m).  Sparse: gather/segment-sum
+    # Dense: one matmul (m,n)*(n,) @ (n,m).  Sparse: gather/segment-sum
     # assembly over the host-precomputed pattern (models/sparse.py).
     S = prob.assemble_normal_matrix(dinv, factor_dtype)
     dS = jnp.diagonal(S)
@@ -235,7 +231,7 @@ def _assemble_condensed(prob: DeviceQP, sigma, del_c, factor_dtype):
     dc_mag = jnp.maximum(jnp.abs(del_c), CONDENSED_RELAX_MIN)
     gamma = 1.0 / dc_mag
     live = prob.live_rows()
-    # A' diag(live) A via the problem's operator (dense: one MXU matmul;
+    # A' diag(live) A via the problem's operator (dense: one matmul;
     # sparse: pattern segment-sum, models/sparse.py); gamma folded in
     # afterwards so the squared entries stay at fp32 range (gamma ~ 1e8
     # would overflow them).
@@ -325,7 +321,7 @@ def factorize(cfg: KKTConfig, prob: DeviceQP, x, zl, zu, del_w, del_c,
             # Jacobi (diagonal) scaling before the low-precision factor: the
             # IPM normal matrix's ill-conditioning is mostly diagonal, so
             # D^-1/2 S D^-1/2 keeps fp32 Cholesky + fp64 refinement
-            # convergent near the barrier floor (the TPU analogue of the
+            # convergent near the barrier floor (the dense analogue of the
             # reference's K2.5 ScaledSparseKKTSystem, src/kernels.jl:138-149).
             dS = jnp.diagonal(S)
             jac = jax.lax.rsqrt(jnp.maximum(dS, jnp.finfo(cfg.factor_dtype).tiny))
@@ -338,10 +334,7 @@ def factorize(cfg: KKTConfig, prob: DeviceQP, x, zl, zu, del_w, del_c,
                     Shat.shape[-1], dtype=cfg.factor_dtype
                 )
             if cfg.linear_solver == LinearSolver.CHOLESKY_INV:
-                if cfg.use_pallas and Shat.shape[-1] <= pallas_chol.MAX_VMEM_N_INV:
-                    Lc, W = pallas_chol.pallas_chol_inv(Shat)
-                else:
-                    Lc, W = block_chol.chol_inv(Shat)
+                Lc, W = block_chol.chol_inv(Shat)
                 ok = linalg.cholesky_is_ok(Lc) & jnp.all(jnp.isfinite(W))
                 fac = W  # store the inverse factor; solves are matmuls
             else:
@@ -409,12 +402,8 @@ def factorize(cfg: KKTConfig, prob: DeviceQP, x, zl, zu, del_w, del_c,
                     Chat.shape[-1], dtype=cfg.factor_dtype
                 )
             if cfg.linear_solver == LinearSolver.CHOLESKY_INV:
-                # Matmul-only inverse factor (solves avoid lax.linalg
-                # triangular solves — the TPU fast path, as in NORMAL).
-                if cfg.use_pallas and Chat.shape[-1] <= pallas_chol.MAX_VMEM_N_INV:
-                    Lc, W = pallas_chol.pallas_chol_inv(Chat)
-                else:
-                    Lc, W = block_chol.chol_inv(Chat)
+                # Matmul-only inverse factor: solves are matmuls, as in NORMAL.
+                Lc, W = block_chol.chol_inv(Chat)
                 ok = linalg.cholesky_is_ok(Lc) & jnp.all(jnp.isfinite(W))
                 fac = W
             else:
@@ -528,9 +517,8 @@ def factorize(cfg: KKTConfig, prob: DeviceQP, x, zl, zu, del_w, del_c,
 
 #: Inner (factor-precision) PCG iteration budget of the mixed-precision
 #: restarted solve.  Each inner iteration costs two m×m fp32 matmuls
-#: (operator + preconditioner) — ~50× cheaper than one emulated-fp64
-#: A-matvec pair at the bench shape — so a generous budget is nearly free;
-#: the inner loop exits on its own fp32 noise floor anyway (pcg_lowp rtol).
+#: (operator + preconditioner); the inner loop exits on its own fp32 noise
+#: floor anyway (pcg_lowp rtol), so the budget is a cap, not a cost.
 MIXED_INNER_ITERS = 8
 
 
@@ -546,7 +534,7 @@ def _mixed_inner_solver(cfg: KKTConfig, factors):
     The outer fp64 loop (:func:`linalg.pcg_flex`) keeps the Krylov
     iteration on the EXACT operator — one fp64 A-matvec pair per outer
     iteration plus the initial residual — while this inner solve does its
-    Krylov work at fp32 MXU rate.  Standard flexible-PCG construction
+    Krylov work at fp32 rate.  Standard flexible-PCG construction
     (variable preconditioner, Polak–Ribière beta).
     """
     L, jac, Smat = factors.L, factors.jac, factors.Smat
@@ -658,7 +646,7 @@ def solve_condensed(
                     # Second-order preconditioner (KKTConfig.precond_refine):
                     # one correction against the retained UNSHIFTED scaled S
                     # cancels the PRECOND_SHIFT's λ/(λ+σ) mis-scaling of
-                    # weak directions — an fp32 MXU matvec + factor apply,
+                    # weak directions — an fp32 matvec + factor apply,
                     # ~2 orders cheaper than the fp64 pair each saved PCG
                     # iteration avoids.
                     z = z + base(bf - factors.Smat @ z)
@@ -700,7 +688,7 @@ def solve_condensed(
                 # outer Krylov stays on the EXACT fp64 operator (robust past
                 # the fp32 conditioning ceiling near the barrier floor),
                 # while each preconditioner application runs several Krylov
-                # iterations at fp32 MXU rate on the retained Jacobi-scaled
+                # iterations at fp32 rate on the retained Jacobi-scaled
                 # S.  Well-conditioned solves exit after the first
                 # application (one fp64 A-pair total); hard ones converge
                 # like the classic fp64 PCG this generalizes.

@@ -1,12 +1,13 @@
 """Dense factorization/solve primitives.
 
-TPU-native replacement for the reference's pluggable sparse direct solvers
+Dense replacement for the reference's pluggable sparse direct solvers
 (cuDSS / Ma57 / CHOLMOD / LDLFactorizations / LAPACK; reference:
-src/linear_solver.jl, src/utils.jl:54-62).  On TPU the winning strategy for
-the KKT sizes in the reference benchmark protocol is *dense blocked*
-factorization on the MXU — sparse pointer-chasing codes do not map to the
-systolic array.  Sparsity is exploited upstream (host-side reductions,
-normal-equation condensation n->m), not inside the factorization.
+src/linear_solver.jl, src/utils.jl:54-62).  For the KKT sizes in the
+reference benchmark protocol the factorization is *dense*: on the GPU
+``jnp.linalg.cholesky`` is cuSOLVER's potrf (batched under vmap) and the
+triangular solves are cuBLAS trsm.  Sparsity is exploited upstream
+(host-side reductions, normal-equation condensation n->m), not inside the
+factorization.
 
 Provides:
 - Cholesky factor/solve for the SPD normal matrix (reference analogue:
@@ -15,8 +16,8 @@ Provides:
   cuDSS LDL, scripts/benchmarks_gpu.jl:42) — valid without pivoting because
   the regularized IPM KKT matrix is symmetric quasi-definite (Vanderbei),
 - LU with partial pivoting as a robust fallback,
-- mixed-precision iterative refinement (factor in fp32 on the MXU, residuals
-  in fp64) replacing the reference's residual check in solve_system!
+- mixed-precision iterative refinement (factor in fp32, residuals in
+  fp64) replacing the reference's residual check in solve_system!
   (src/linear_solver.jl:28-43).
 """
 
@@ -37,8 +38,9 @@ from jax import lax
 def cholesky_factor(S: jax.Array, dtype=None):
     """Lower Cholesky factor of SPD ``S``; NaNs signal a failed factorization.
 
-    ``jnp.linalg.cholesky`` lowers to XLA's blocked TPU implementation; the
-    Pallas kernel in ops/pallas_chol.py can be swapped in for large sizes.
+    ``jnp.linalg.cholesky`` lowers to LAPACK potrf on the CPU and cuSOLVER
+    potrf on the GPU; both turn a nonzero ``info`` into an all-NaN factor,
+    which :func:`cholesky_is_ok` detects.
     """
     if dtype is not None:
         S = S.astype(dtype)
@@ -75,8 +77,8 @@ def ldl_factor(K: jax.Array, block: int = 128, dtype=None):
     This replaces the reference's cuDSS ``MadNLP.LDL`` algorithm
     (scripts/benchmarks_gpu.jl:41-42).
 
-    Right-looking blocked algorithm; the O(n^3) trailing updates run on the
-    MXU via dot_general.
+    Right-looking blocked algorithm; the O(n^3) trailing updates are matmuls
+    (dot_general).
     """
     if dtype is not None:
         K = K.astype(dtype)
@@ -197,7 +199,7 @@ def refine(
     ``solve_fn`` runs in the (possibly low) factorization precision;
     ``matvec_fn`` must evaluate K @ x in the precision of ``rhs`` (fp64).
     With a well-regularized fp32 factor, 2-3 sweeps recover ~1e-10 relative
-    residuals — this is what lets the MXU (fp32) do the O(n^3) work while the
+    residuals — this is what lets fp32 arithmetic do the O(n^3) work while the
     solver converges to the reference's 1e-8 tolerance
     (SURVEY §7 "hard parts" item 4).
 
@@ -256,8 +258,7 @@ def pcg_lowp(solve_fn, matvec_fn, b: jax.Array, max_iters: int, rtol: float = 2e
     The inner engine of the mixed-precision restarted solve (see
     ``ops/kkt.solve_condensed``): every operand — operator application,
     preconditioner solve, dot products — stays in fp32, so one iteration
-    costs two m×m fp32 matmuls instead of an emulated-fp64 A-matvec pair
-    (measured 24× slower at the bench shape, scripts/microbench_matvec.py).
+    costs two m×m fp32 matmuls instead of an fp64 A-matvec pair.
     ``rtol`` defaults just above the fp32 noise floor: pushing further down
     cannot improve the true residual, only the outer fp64 restart can.
 
@@ -368,7 +369,7 @@ def pcg(solve_fn, matvec_fn, rhs: jax.Array, max_iters: int, rtol: float = 1e-14
     Strictly stronger than iterative refinement (Richardson) for SPD systems:
     where refinement diverges once eps32 * cond(S) > 1, PCG still converges
     as long as the preconditioned operator stays positive definite — this is
-    what carries the fp32 MXU factorization through the ill-conditioned
+    what carries the fp32 factorization through the ill-conditioned
     final IPM iterations (cond(S) ~ 1/mu^2) to the 1e-8 tolerance.
 
     ``solve_fn`` applies the preconditioner (fp32 Cholesky solve);

@@ -1,12 +1,9 @@
-"""Ozaki-scheme fp64 matvec on the MXU (error-free bf16 slicing).
+"""Ozaki-scheme fp64 matvec from low-precision dots (error-free slicing).
 
-XLA emulates fp64 on TPU with double-word arithmetic that cannot use the
-MXU: at the benchmark shape an fp64 A-matvec pair costs 24x its fp32
-counterpart (scripts/microbench_matvec.py), and BASELINE.md shows those
-pairs dominate the whole IPM iteration.  This module recovers near-fp64
-matvec accuracy from pure bf16 MXU passes using the Ozaki splitting
-(Ozaki et al., "Error-free transformations of matrix multiplication";
-the int8 tensor-core variant is known as ozIMMU) adapted to the TPU:
+This module recovers near-fp64 matvec accuracy from pure bf16 (or int8)
+matrix passes using the Ozaki splitting (Ozaki et al., "Error-free
+transformations of matrix multiplication"; the int8 tensor-core variant is
+known as ozIMMU):
 
 1. Each row of A is scaled by a power of two ``e_i`` so entries lie in
    [-1, 1], then decomposed into ``S`` fixed-point slices of ``t = 8``
@@ -15,25 +12,23 @@ the int8 tensor-core variant is known as ozIMMU) adapted to the TPU:
 2. The vector x is sliced the same way against a single power-of-two
    scale ``f`` (vector slicing is cheap; it happens per matvec).
 3. Every slice-pair product ``a_k[i,j] * b_l[j]`` is an integer below
-   2^16 on a common power-of-two grid, so an MXU contraction over a
-   128-chunk accumulates <= 128 * 2^16 = 2^23 in fp32 — EXACTLY.  All
-   rounding is confined to the final cross-chunk/cross-pair reduction,
-   performed in fp64 on values that are themselves exact.
-4. All S^2 slice pairs run as ONE chunked dot_general (one large MXU
-   matmul; a triangle truncation of the sub-floor pairs measured slower —
-   see :func:`matvec`).
+   2^16 on a common power-of-two grid, so a contraction over a 128-chunk
+   accumulates <= 128 * 2^16 = 2^23 in fp32 — EXACTLY.  All rounding is
+   confined to the final cross-chunk/cross-pair reduction, performed in
+   fp64 on values that are themselves exact.
+4. All S^2 slice pairs run as ONE chunked dot_general (one large matmul;
+   a triangle truncation of the sub-floor pairs measured slower — see
+   :func:`matvec`).
 
 With ``S = 7`` (the default) the result carries ~2^-44 relative accuracy
-(vs ~2^-42 for a native-fp64 matvec's n-term accumulation) at the cost
-of 49 bf16 MXU passes — measured 15.1x cheaper than the emulated-fp64
-matvec at the bench shape (scripts/microbench_ozaki.py), with the matrix
-slices precomputed once per solve.
+(vs ~2^-42 for a native-fp64 matvec's n-term accumulation) from 49 bf16
+pass-pairs, with the matrix slices precomputed once per solve.  It is an
+explicit option (``fp64_matvec="ozaki"``); the default is the exact fp64
+product.  S bf16 slices read 2S bytes per matrix entry against 8 for fp64,
+so the scheme only pays where fp64 arithmetic, not memory, is the limit.
 
 The reference has no analogue: its GPUs execute fp64 natively
-(ext/MadIPMCUDAExt/cuda_wrapper.jl SpMV operators).  This is the
-TPU-native answer to the same requirement (SURVEY §7 hard part 4:
-"fp64 throughput on TPU ... mixed-precision" — here the mixing happens
-inside a single error-free operator).
+(ext/MadIPMCUDAExt/cuda_wrapper.jl SpMV operators).
 """
 
 from __future__ import annotations
@@ -45,18 +40,17 @@ import jax.numpy as jnp
 import numpy as np
 
 #: slice width in bits.  8 = the bf16 significand; products of two slices
-#: fit 16 bits, so a 128-long MXU contraction stays exactly representable
-#: in the fp32 accumulator (2^16 * 2^7 = 2^23 < 2^24).
+#: fit 16 bits, so a 128-long contraction stays exactly representable in
+#: the fp32 accumulator (2^16 * 2^7 = 2^23 < 2^24).
 T_BITS = 8
 #: number of slices.  The matvec error bound is ~2n * 2^{-8S} relative to
-#: rowmax(A) * max|x|: at the bench shape (n = 2048) S = 7 gives ~2^-44 ≈
-#: 6e-14 — comfortably below the PCG's historical 1e-13 corrector floor;
-#: S = 6 sits at ~1.5e-11 (36 instead of 49 MXU pass-pairs).  The env
-#: override exists for measurement (scripts/ablate_slices.py) — measure
-#: solve rate, iteration counts AND the known-optimum rel-KKT certificate
-#: before changing the default.
-N_SLICES = int(__import__("os").environ.get("MADIPM_OZAKI_SLICES", "7"))
-#: MXU contraction chunk (exactness bound above assumes <= 2^(24-16)).
+#: rowmax(A) * max|x|: at n = 2048, S = 7 gives ~2^-44 ≈ 6e-14 —
+#: comfortably below the PCG's historical 1e-13 corrector floor; S = 6
+#: sits at ~1.5e-11 (36 instead of 49 pass-pairs).  Measure solve rate,
+#: iteration counts AND the known-optimum rel-KKT certificate before
+#: changing it (IPMOptions.ozaki_slices overrides it per solve).
+N_SLICES = 7
+#: contraction chunk (exactness bound above assumes <= 2^(24-16)).
 CHUNK = 128
 
 
@@ -82,9 +76,9 @@ def _pow2_scale(mx):
     A one-ulp error in the unsafe direction (scale < mx) would make the
     leading slice overflow bf16's 8-bit significand and silently lose
     exactness, so no ceil(log2)/exp2 (transcendental approximations), and
-    no frexp/ldexp either (they lower to s64 bitcasts that XLA's TPU
-    x64-rewriter rejects).  Instead: round mx UP into fp32 and build
-    2^(exponent+1) directly from int32 exponent bits — exact, TPU-legal.
+    no frexp/ldexp either (they lower to s64 bitcasts that not every XLA
+    backend accepts).  Instead: round mx UP into fp32 and build
+    2^(exponent+1) directly from int32 exponent bits — exact everywhere.
 
     Values past fp32's exponent range (|A| >= 2^127, < 2^-120) saturate;
     scaled LP/QP data never approaches either end.
@@ -160,15 +154,14 @@ def _pair_block(a_slices, x_slices):
 
 
 def matvec(sm: SlicedMatrix, x) -> jax.Array:  # noqa: E302
-    """y = A @ x with ~2^{-8(S-1)} relative accuracy from bf16 MXU passes.
+    """y = A @ x with ~2^{-8(S-1)} relative accuracy from bf16 passes.
 
     x is fp64 of length C*CHUNK (or shorter; zero-padded).  All S^2
     slice pairs run as ONE chunked dot_general: a triangle truncation
     (pairs s + t >= S contribute below the slicing floor) was measured
     SLOWER despite 30% fewer FLOPs — splitting into three rectangular
-    blocks traded one large MXU matmul for three smaller dispatches
-    (291 vs 359 iter/s on the headline bench), so the full all-pairs
-    contraction stays.
+    blocks traded one large matmul for three smaller dispatches, so the
+    full all-pairs contraction stays.
     """
     S, C, m, _ = sm.slices.shape
     npad = C * CHUNK
@@ -184,7 +177,7 @@ def matvec(sm: SlicedMatrix, x) -> jax.Array:  # noqa: E302
 
 
 # ---------------------------------------------------------------------------
-# int8 variant: 7-bit slices, int32 MXU accumulation
+# int8 variant: 7-bit slices, int32 accumulation
 # ---------------------------------------------------------------------------
 #
 # Same error-free construction with the slices stored as int8 raw integers
@@ -196,18 +189,12 @@ def matvec(sm: SlicedMatrix, x) -> jax.Array:  # noqa: E302
 #   int32 s8 x s8 -> s32 dot for contraction lengths n < 2^19 (at n = 2^19
 #   a maximal-slice sum reaches 2^31, one past int32 max) — no chunking
 #   needed, unlike the bf16 scheme's 128-chunk fp32 accumulator;
-# * HBM traffic would halve: 8 slices x 1 byte vs bf16's 7 x 2 B/entry.
+# * device-memory traffic halves: 8 slices x 1 byte vs bf16's 7 x 2 B/entry.
 #
-# MEASURED REALITY (one v5e, scripts/microbench_ozaki.py): current XLA does
-# NOT lower this s8 dot_general to an integer MXU path — the operator pair
-# runs at 1.42 ms vs the bf16 scheme's 1.33 ms (NO speedup), and accuracy
-# degrades to ~3.4e-6 scaled error (vs 2.7e-17 for bf16): the products
-# evidently round through bf16 passes, destroying the >=12-bit-exact
-# premise.  On CPU the dot is a true integer contraction and the scheme is
-# exact (tests/test_ozaki.py::TestMatvecI8).  Consequently this variant is
-# BLOCKED on TPU (solver/driver.make_config raises) and kept only as a
-# documented negative result + CPU-exact fallback; revisit if XLA grows a
-# native s8 MXU lowering.
+# The scheme is exact only where the backend lowers the s8 dot to a true
+# integer contraction (the CPU does: tests/test_ozaki.py::TestMatvecI8).
+# A lowering that rounds the products through a float format breaks the
+# >=12-bit-exact premise, so check the accuracy on each new backend.
 
 T8_BITS = 7
 N8_SLICES = 8
@@ -257,7 +244,7 @@ def _i8_weights(S: int, T: int):
 
 
 def matvec_i8(sm: SlicedMatrixI8, x) -> jax.Array:
-    """y = A @ x via int8 MXU passes with int32 exact accumulation.
+    """y = A @ x via int8 passes with int32 exact accumulation.
 
     All S*T slice pairs run as ONE s8 dot_general over the full
     contraction axis (int32 partials stay exact up to length 2^19);
@@ -288,8 +275,8 @@ def matvec_i8(sm: SlicedMatrixI8, x) -> jax.Array:
 
 def matvec_t(sm: SlicedMatrix, v) -> jax.Array:
     """y = A' @ v computed from the FORWARD slices — no transposed slice
-    copy stored (halves the dominant HBM cost of the Ozaki operator pair;
-    at m=4096/n=8192 the stored A'-slices alone were ~470 MB/instance).
+    copy stored (halves the device memory of the Ozaki operator pair;
+    at m=4096/n=8192 the stored A'-slices alone are ~470 MB/instance).
 
     A = diag(row_scale) rec with rec the slice reconstruction, so
     A' v = rec' (row_scale * v).  Exactness transposes cleanly: the
@@ -347,8 +334,8 @@ def slice_any(A, variant: str = "bf16", n_slices=None):
     """Build slices for ``variant`` ("bf16" or "i8").
 
     ``n_slices`` (bf16 only): override N_SLICES.  6 gives a ~1.5e-11
-    relative operator (36 instead of 49 MXU pass-pairs) — measured safe
-    and faster at tol=1e-8 (see IPMOptions.ozaki_slices)."""
+    relative operator (36 instead of 49 pass-pairs); see
+    IPMOptions.ozaki_slices."""
     if variant == "bf16":
         return slice_matrix(A, n_slices or N_SLICES)
     if variant == "i8":

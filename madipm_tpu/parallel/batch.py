@@ -1,12 +1,12 @@
 """Batched (vmapped + sharded) solves.
 
-TPU-native replacement for the reference's *serial* benchmark sweeps
+Batched replacement for the reference's *serial* benchmark sweeps
 (reference: scripts/benchmarks_cpu.jl:15-58 loops over instances one at a
 time): instances padded to a common bucket shape are stacked on a leading
 axis, the whole solve is ``vmap``-ed (XLA batches every factorization and
-matvec onto the MXU) and the batch axis is sharded across the device mesh —
-each chip solves its shard, no communication needed (pure data parallelism
-over DCN/ICI).
+matvec; on the GPU the Cholesky is cuSOLVER's batched potrf) and the batch
+axis is sharded across the device mesh — each device solves its shard, no
+communication needed (pure data parallelism).
 
 ``vmap`` of ``lax.while_loop`` runs until every instance terminates, with
 per-instance updates masked out once an instance's status leaves REGULAR —

@@ -2,26 +2,34 @@
 
 SURVEY §7 step 7 / "hard part #2": the reference is single-device, its
 factorization a cuDSS call; here a single large SPD system's factorization
-itself is partitioned over chips.  Row-strip layout: device ``p`` of ``P``
+itself is partitioned over devices.  Row-strip layout: device ``p`` of ``P``
 owns rows ``[p·mb, (p+1)·mb)`` (mb = m / P) of the matrix and of the factor.
 
 Right-looking panel algorithm, one panel per device-strip:
 
     for k in 0..P-1:
         D    = psum(owner-k's diagonal block)            # [mb, mb]
-        Lkk, W = chol_inv(D)       (replicated — cheaper than broadcasting)
+        W    = chol(D)^-1          (replicated — cheaper than broadcasting)
         B_p  = strip_p[:, kcols] @ W.T                   # local panel block
-        panel = all_gather(B_p)                          # [m, mb] over ICI
-        strip_p[:, trailing] -= B_p @ panel.T            # local MXU update
+        panel = all_gather(B_p)                          # [m, mb]
+        strip_p[:, trailing] -= B_p @ panel.T            # local matmul update
 
 Per panel: one [mb,mb] psum + one [m,mb] all_gather; total communication
 O(m²) words — the same order as gathering S once, but peak per-device
-memory stays m·mb and every trailing update is a local MXU matmul.  The
+memory stays m·mb and every trailing update is a local matmul.  The
 owner's panel block needs no special case: D @ W.T = Lkk Lkk' Lkk⁻ᵀ = Lkk.
+
+The diagonal block is factored by ``jnp.linalg.cholesky`` and inverted by
+one triangular solve against the identity (cuSOLVER potrf + cuBLAS trsm on
+the GPU).  The panel loop is unrolled, so each panel's block factorization
+is a separate op in the program: a library call keeps that program small,
+where the matmul-only recursion (ops/block_chol) would unroll into
+thousands of ops per panel and take minutes to compile at mb = 1024.
 
 Solves use the per-device inverse diagonal blocks (saved at factor time),
 so forward/backward substitution is P small psums of [mb] vectors with
-matmul-only local work — no ``lax.linalg.triangular_solve`` (slow on TPU).
+matmul-only local work — no ``lax.linalg.triangular_solve``, whose
+sequential sweep would have to run across the strips.
 
 Numerical contract matches ops/linalg.cholesky (no pivoting; caller owns
 regularization retries).  Validated against ``jnp.linalg.cholesky`` on an
@@ -38,7 +46,7 @@ from jax import lax
 from jax.sharding import Mesh, PartitionSpec as P
 from jax import shard_map
 
-from ..ops import block_chol
+from ..ops import linalg
 
 
 def _local_cholesky(mesh: Mesh, axis: str, S_p):
@@ -57,9 +65,12 @@ def _local_cholesky(mesh: Mesh, axis: str, S_p):
         # Diagonal block from its owner (psum of a masked strip slice).
         own = (p == k).astype(S_p.dtype)
         D = lax.psum(L_p[:, kcols] * own, axis)
-        # Replicated factor + inverse of the mb x mb block: matmul-only
-        # recursion (ops/block_chol), no broadcast round needed.
-        Lkk, W = block_chol.chol_inv(D)
+        # Replicated factor + inverse of the mb x mb block, no broadcast
+        # round needed; a failed factor is all-NaN and poisons W.
+        Lkk = linalg.cholesky_factor(D)
+        W = lax.linalg.triangular_solve(
+            Lkk, jnp.eye(mb, dtype=D.dtype), left_side=True, lower=True
+        )
         W_own = jnp.where(p == k, W, W_own)
         # Panel block of this strip; rows above the panel are zero in L.
         B_p = jnp.dot(L_p[:, kcols], W.T, preferred_element_type=S_p.dtype)

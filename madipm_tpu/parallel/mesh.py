@@ -1,14 +1,17 @@
 """Device-mesh utilities.
 
 The reference is strictly single-device (SURVEY §2.3: no distributed backend
-anywhere); scaling across a TPU pod slice is a new capability of this
-framework.  Two axes of parallelism:
+anywhere); scaling across several GPUs and hosts is a new capability of
+this framework.  Two axes of parallelism:
 
 - ``batch``: independent problem instances sharded across devices (the
-  TPU-native version of the reference's serial benchmark sweeps,
-  scripts/benchmarks_cpu.jl:15-58) — rides DCN across hosts.
+  batched version of the reference's serial benchmark sweeps,
+  scripts/benchmarks_cpu.jl:15-58) — needs no communication, so it may
+  cross hosts over the network.
 - ``cols``: the variable dimension of one large instance sharded across
-  devices for Schur-complement KKT assembly (parallel/schur.py) — rides ICI.
+  devices for Schur-complement KKT assembly (parallel/schur.py) — its
+  collectives run every iteration, so it stays within a host, where the
+  GPUs are joined all to all by NVLink.
 """
 
 from __future__ import annotations
@@ -54,12 +57,13 @@ def init_distributed(
 ) -> int:
     """Join the multi-host JAX runtime (no-op when single-process).
 
-    Thin wrapper over ``jax.distributed.initialize``: on TPU pods the three
-    arguments are discovered from the environment automatically, so call
-    sites can simply run ``init_distributed()`` at startup on every host.
-    Returns the local process index.  XLA owns all cross-host transport
-    (DCN for the ``batch`` axis, ICI within a slice) — there is no
-    NCCL/MPI-analogue code anywhere in this framework.
+    Thin wrapper over ``jax.distributed.initialize``.  Pass the
+    coordinator's ``host:port``, the process count and this process's index
+    (or set ``JAX_COORDINATOR_ADDRESS`` and let a cluster environment that
+    JAX recognizes supply the rest).  Returns the local process index.  XLA
+    owns all transport (NCCL over NVLink within a host, the network across
+    hosts) — there is no hand-written communication code in this
+    framework.
     """
     # Do not touch the backend before deciding: jax.distributed.initialize
     # must run before any computation, and is a no-op need when neither the
@@ -82,17 +86,17 @@ def make_multihost_mesh(
 ) -> Mesh:
     """Global mesh over every device of every process.
 
-    Layout: ``batch`` (outer, crosses hosts — data parallel over DCN) x
-    ``cols`` (inner, within a host's ICI domain — Schur model parallel).
-    ``cols`` must divide the per-host device count so the column all-reduce
-    never crosses DCN.
+    Layout: ``batch`` (outer, crosses hosts — data parallel over the
+    network) x ``cols`` (inner, within one host's NVLink domain — Schur
+    model parallel).  ``cols`` must divide the per-host device count so the
+    column all-reduce never leaves the host.
     """
     devs = jax.devices()
     per_host = len([d for d in devs if d.process_index == 0]) or len(devs)
     if per_host % cols != 0:
         raise ValueError(
             f"cols={cols} must divide the per-host device count {per_host} "
-            "(the Schur psum must ride ICI, not DCN)"
+            "(the Schur psum must stay within one host)"
         )
     arr = np.asarray(devs).reshape(len(devs) // cols, cols)
     return Mesh(arr, axis_names=tuple(axis_names))

@@ -6,11 +6,11 @@ dimension (columns of A, all n-vectors) is sharded; the normal matrix
 
     S = A Sigma^-1 A' = sum_k A_k D_k A_k'        (k = device shard)
 
-is a sum of per-device outer products reduced with ``psum`` over ICI — the
+is a sum of per-device outer products reduced with ``psum`` — the
 communication-optimal decomposition (one m x m all-reduce per iteration,
-independent of n).  The factorization of S then runs replicated (every chip
-factors the same m x m matrix; distributed blocked factorization is the
-next step).
+independent of n).  The factorization of S then runs replicated (every device
+factors the same m x m matrix) unless the distributed strip Cholesky
+(parallel/dist_chol.py) is selected.
 
 Two entry points:
 
@@ -19,8 +19,7 @@ Two entry points:
   program (the "pick a mesh, annotate, let XLA do it" recipe).
 - :func:`schur_normal_solve` — explicit ``shard_map`` building block with
   hand-placed ``psum`` for the Schur reduction, used by tests to pin down
-  the communication pattern and as the seed of the future distributed
-  Pallas factorization.
+  the communication pattern.
 """
 
 from __future__ import annotations
@@ -81,7 +80,7 @@ def solve_sharded(
     (parallel/dist_chol.dist_factor_normal): the m x m factor itself is
     partitioned across the mesh instead of replicated on every device —
     SURVEY §7 step 7, and the lever for m x m factors that exceed one
-    device's HBM.  Requires m divisible by the mesh axis size.
+    device's memory.  Requires m divisible by the mesh axis size.
     """
     from ..utils.options import KKTSystem
 

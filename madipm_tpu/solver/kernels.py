@@ -76,7 +76,7 @@ def eval_cons_residual(prob: DeviceQP, x, ax=None):
     """A x - b, zeroed on padded rows (reference solver.c after rhs shift).
 
     ``ax`` optionally supplies a precomputed A x: the fp64 A-applications are
-    the dominant per-iteration cost on TPU (emulated fp64 is ~24x fp32), and
+    a large share of the per-iteration work, and
     the termination check, predictor rhs, and corrector rhs all evaluate the
     SAME A x / A' y pair — the driver computes it once and threads it through.
     """
@@ -120,7 +120,7 @@ def ls_infeasibility_certificate(prob: DeviceQP, x, ax=None, min_residual=0.0):
     a point (inf_du, compl -> 0, inf_pr stuck at the LS distance), and the
     projected gradient of the LS objective vanishes there up to solve
     accuracy.  On a FEASIBLE instance that merely grinds (linear-solve
-    noise pinning inf_pr at ~1e-4, scripts/diag_blowup.py), the LS optimum
+    noise pinning inf_pr at ~1e-4), the LS optimum
     is zero, so the projected gradient at the stalled point stays O(||r||)
     — orders above the 1e-2*||r||_inf acceptance used here.  This is the
     gate that keeps the infeasibility-by-stall classifier
@@ -330,7 +330,7 @@ def mehrotra_adaptive_step(
     update_step! for MehrotraAdaptiveStep, src/kernels.jl:309-358).
 
     The reference needs scalar indexing at the argmin entries (its GPU path
-    comments out ``CUDA.@allowscalar``); on TPU the gathers compile into the
+    comments out ``CUDA.@allowscalar``); here the gathers compile into the
     fused program.
     """
     gamma_a = 1.0 / (1.0 - gamma_f)

@@ -1,6 +1,6 @@
 """Solver state pytree.
 
-The TPU-native replacement for the reference's mutable mega-struct
+The JAX replacement for the reference's mutable mega-struct
 ``MPCSolver`` (reference: src/structure.jl:1-178).  Instead of a struct of
 vectors + SubVector views mutated in place, the iterate is an immutable
 NamedTuple of full-length arrays + scalars; it is carried through

@@ -4,9 +4,9 @@ Analogue of the MadNLPLogger machinery the reference routes all output
 through (reference: src/utils.jl:131-137 builds the logger from
 ``print_level`` / ``file_print_level`` / ``output_file``;
 src/structure.jl:180-197 prints the iteration table through it), plus the
-TPU-appropriate profiling hook the reference lacks (SURVEY §5: the
-reference has wall-clock counters only; on TPU the useful trace is an XLA
-profiler capture viewable in TensorBoard/Perfetto).
+device profiling hook the reference lacks (SURVEY §5: the reference has
+wall-clock counters only; the useful trace is an XLA profiler capture
+viewable in TensorBoard/Perfetto).
 """
 
 from __future__ import annotations
@@ -82,8 +82,8 @@ def profile_trace(trace_dir: Optional[str]):
     """Optionally capture an XLA profiler trace around a solve.
 
     ``with profile_trace("/tmp/madipm_trace"): solver.solve()`` writes a
-    TensorBoard/Perfetto-compatible trace of every XLA op (compile, HBM
-    transfers, kernel times).  No-op when ``trace_dir`` is falsy.  This is
+    TensorBoard/Perfetto-compatible trace of every XLA op (compile,
+    host-device transfers, kernel times).  No-op when ``trace_dir`` is falsy.  This is
     the per-phase visibility the reference approximates with wall-clock
     counters (reference: src/structure.jl:86,155, src/solver.jl:368,407).
     """

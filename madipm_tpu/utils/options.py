@@ -1,6 +1,6 @@
 """Solver options.
 
-TPU-native analogue of ``IPMOptions`` (reference: src/utils.jl:69-119) plus the
+JAX analogue of ``IPMOptions`` (reference: src/utils.jl:69-119) plus the
 pluggable strategy objects (reference: src/utils.jl:1-48):
 
 - step rules: ``ConservativeStep`` / ``AdaptiveStep`` / ``MehrotraAdaptiveStep``
@@ -124,8 +124,8 @@ class KKTSystem(enum.Enum):
       iteration instead of the size-(n+m) quasi-definite LDL' of K2.
       |del_c| is floored at 1e-8: the relaxation IS the formulation, so it
       cannot be arbitrarily small.
-    The TPU compute path is dense-blocked either way; sparse inputs are packed
-    on host (TPUs prefer big MXU matmuls over pointer chasing).
+    The device compute path is dense-blocked either way; sparse inputs are
+    packed on host.
     """
 
     NORMAL = "normal"
@@ -139,8 +139,8 @@ class LinearSolver(enum.Enum):
 
     - CHOLESKY: dense (blocked) Cholesky of the SPD normal matrix.
     - CHOLESKY_INV: recursive blocked Cholesky producing the explicit
-      inverse factor L^-1 (ops/block_chol.py) — solves become two MXU
-      matmuls instead of sequential triangular solves; the TPU-fast option.
+      inverse factor L^-1 (ops/block_chol.py) — solves become two
+      matmuls instead of sequential triangular solves.
     - LDL: dense unpivoted LDL' of the quasi-definite augmented matrix.
     - LU: dense LU with partial pivoting (robust fallback).
     Replaces the reference's pluggable direct solvers (cuDSS/Ma57/CHOLMOD/
@@ -150,7 +150,7 @@ class LinearSolver(enum.Enum):
     CHOLESKY = "cholesky"
     CHOLESKY_INV = "cholesky_inv"
     LDL = "ldl"
-    LDL_INV = "ldl_inv"  # matmul-only LDL' with explicit inverse (TPU-fast)
+    LDL_INV = "ldl_inv"  # matmul-only LDL' with explicit inverse
     LU = "lu"
 
 
@@ -252,32 +252,28 @@ class IPMOptions:
     #: early/mid IPM iteration solve its corrector to 1e-9 relative even
     #: though the outer iteration only needs a residual well under mu —
     #: raising the cap trades extra IPM iterations for fewer fp64 PCG
-    #: operator applications per iteration.  Measure before adopting
-    #: (scripts/ablate_corrtol.py); the late phase is unaffected either
-    #: way (mu < cap/0.01 re-enters the mu-proportional regime).
+    #: operator applications per iteration.  Measure before adopting;
+    #: the late phase is unaffected either way (mu < cap/0.01 re-enters
+    #: the mu-proportional regime).
     pcg_tol_cap: float = 1e-9
     #: LOWER clamp of the corrector's mu-adaptive PCG exit tolerance (only
     #: read when pcg_adaptive_tol=True).  As mu falls toward ~1e-10 the
     #: mu-proportional rule asks for relative residuals near this floor
-    #: while the fp32-factor preconditioner is at its weakest — the round-5
-    #: trajectory profile (scripts/diag_trips.py) measured the LAST ~10 IPM
-    #: iterations at ~5x the per-trip cost of the early ones (~78% of
-    #: device time) almost entirely in these late corrector PCG sweeps.
-    #: Inexact-Newton analysis only needs step residuals ~0.01*tol relative
-    #: to the (itself shrinking) rhs for 1e-8 convergence; raising the
-    #: floor to ~1e-10 removes the over-solve.  Default keeps the
-    #: historical 1e-13; measure before adopting (scripts/ablate_tolfloor.py).
+    #: while the fp32-factor preconditioner is at its weakest, so the late
+    #: corrector PCG sweeps grow.  Inexact-Newton analysis only needs step
+    #: residuals ~0.01*tol relative to the (itself shrinking) rhs for 1e-8
+    #: convergence; raising the floor to ~1e-10 removes the over-solve.
+    #: Default keeps the historical 1e-13; measure before adopting.
     pcg_tol_floor: float = 1e-13
-    #: max fp64 iterative-refinement sweeps after each fp32 factor-solve on
-    #: TPU (0 disables; load-bearing for reaching tol=1e-8 with an MXU fp32
-    #: factorization).  The refinement loop exits early on convergence, so
-    #: this is a budget, not a fixed cost (ops/linalg.refine); the corrector
-    #: PCG budget is 4x this.  Default 12: at 6, rhs-perturbed bench
-    #: instances ground past max_iter at the barrier floor (the budget, not
-    #: the tolerance rule, binds there — a 111-iteration grind became a
-    #: 21-iteration solve at 12, and the m=2048x8 suite went from 3/8 to
-    #: 8/8 solved at +0% cost on healthy lanes, which exit on rtol long
-    #: before the cap; scripts/ablate_robust2048.py, 2026-08-21).
+    #: max fp64 iterative-refinement sweeps after each low-precision
+    #: factor-solve (0 disables; load-bearing for reaching tol=1e-8 with an
+    #: fp32 factorization).  Only read when the factor runs below the
+    #: residual precision, or for K1 CONDENSED.  The refinement loop exits
+    #: early on convergence, so this is a budget, not a fixed cost
+    #: (ops/linalg.refine); the corrector PCG budget is 4x this.  At 6,
+    #: rhs-perturbed fp32-factor instances ground past max_iter at the
+    #: barrier floor (the budget, not the tolerance rule, binds there);
+    #: healthy lanes exit on rtol long before the cap.
     refinement_steps: int = 12
     #: PCG iteration budget of the PREDICTOR (affine-scaling) solve.
     #: None = max(2, refinement_steps // 2) (the default since round 1).
@@ -287,8 +283,7 @@ class IPMOptions:
     #: sigma, the Mehrotra correction products), which need ~2-3 digits,
     #: so a factor-accurate direction can suffice; the corrector (the
     #: actual step) always solves to full accuracy.  Saves ~2 fp64
-    #: A-applications per iteration — measure solve rate before adopting
-    #: (scripts/ablate_predictor.py).
+    #: A-applications per iteration — measure solve rate before adopting.
     predictor_pcg_budget: Optional[int] = None
     #: advance the fused driver's memoized ``A x`` / ``A' y`` pair by
     #: RECURRENCE (``ax += alpha_p * A dx``, with ``A dx`` and ``A' dy``
@@ -302,8 +297,9 @@ class IPMOptions:
     #: drivers (solve_logged/solve_timed) always recompute exactly.
     product_recurrence: bool = True
 
-    # Compute dtype of the factorization ("float64" on CPU tests; "float32"
-    # + refinement on TPU). None = pick by backend.
+    # Compute dtype of the factorization.  None = the residual dtype
+    # (fp64 factor, no refinement); "float32" selects the mixed-precision
+    # route (fp32 factor + fp64 PCG refinement).
     factor_dtype: Optional[str] = None
 
     #: second-order preconditioner for the NORMAL low-precision-factor
@@ -312,40 +308,27 @@ class IPMOptions:
     #: per preconditioner application, M⁻¹' b = z + M⁻¹(b − Ŝ z).  The
     #: shift floors weak-direction preconditioned eigenvalues at λ/(λ+σ),
     #: which is what forces several fp64 PCG iterations in the late IPM
-    #: phase (scripts/diag_trips.py); the correction cancels that error to
-    #: first order for one fp32 MXU matvec + one extra factor application
-    #: per preconditioner call — ~2 orders cheaper than the fp64 Ozaki
-    #: pair each saved PCG iteration avoids.  Costs one retained (m,m)
-    #: fp32 buffer per lane.  MEASURED NEGATIVE at the tol=1e-8 bench
-    #: config on a v5e (scripts/ablate_refine.py, 2026-08-22): it does cut
-    #: iterations (171 vs 176 at m=1024×8) but the doubled preconditioner
-    #: cost applies to EVERY PCG iteration of EVERY phase — including the
-    #: early/mid iterations where one application already met the exit
-    #: tolerance — for a net 423.5 → 330.9 iter/s (m=1024) and 85.6 → 68.6
-    #: (m=2048).  Kept for workloads whose conditioning keeps the PCG deep
-    #: throughout (tol ≪ 1e-8, or heavily degenerate tails).
+    #: phase; the correction cancels that error to first order for one
+    #: fp32 matvec + one extra factor application per preconditioner call.
+    #: Costs one retained (m,m) fp32 buffer per lane.  The doubled
+    #: preconditioner cost applies to EVERY PCG iteration of EVERY phase —
+    #: including the early/mid iterations where one application already
+    #: met the exit tolerance — so it only pays for workloads whose
+    #: conditioning keeps the PCG deep throughout (tol ≪ 1e-8, or heavily
+    #: degenerate tails).  Not measured on the GPU.
     precond_refine: bool = False
 
     #: XLA matmul precision for the factor-dtype work (normal assembly, the
     #: blocked factorization, preconditioner applications) when the factor
-    #: runs below the residual precision: "default" (1 bf16 MXU pass),
-    #: "high" (3 passes), "highest" (6 passes, true fp32), or None =
-    #: inherit the global jax default.  MEASURED NEGATIVE at the tol=1e-8
-    #: benchmark config on a v5e (scripts/ablate_precision.py): "high" is
-    #: only +9% iter/s and "default" +27%, and BOTH collapse convergence
-    #: (0/8 solved — the unstructured bf16-truncation error in the factor
-    #: swamps the 1e-12-scale eigenvalues of the Jacobi-scaled normal
-    #: matrix near the barrier floor, unlike the structured PRECOND_SHIFT,
-    #: and the fp64 PCG budget cannot recover).  Kept for looser-tolerance
-    #: workloads; leave None for tol<=1e-8.
+    #: runs below the residual precision: "default" (on the GPU, TF32 tensor
+    #: cores), "high", "highest" (true fp32), or None = inherit the global
+    #: jax default.  Reduced precision truncates the factor in an
+    #: unstructured way that swamps the 1e-12-scale eigenvalues of the
+    #: Jacobi-scaled normal matrix near the barrier floor (unlike the
+    #: structured PRECOND_SHIFT), and the fp64 PCG budget cannot recover at
+    #: tol=1e-8.  Kept for looser-tolerance workloads; leave None for
+    #: tol<=1e-8.
     factor_precision: Optional[str] = None
-
-    #: fuse the fp32 Cholesky into one Pallas VMEM kernel (TPU only; the
-    #: system must fit VMEM).  None = off: at benchmark KKT sizes the fully
-    #: fused XLA solve already pipelines the factorization ops, and the
-    #: kernel measured slightly slower end-to-end on a v5e.  Opt in for
-    #: large single instances.
-    use_pallas: Optional[bool] = None
 
     #: precondition the fp64 PCG with an inner fp32 CG (flexible PCG).
     #: Off by default: measured at the bench shape the fp32 factor alone
@@ -353,36 +336,28 @@ class IPMOptions:
     #: overhead (ops/kkt.KKTConfig.use_flex_pcg).
     pcg_flex: bool = False
 
-    #: how fp64 A-matvecs are evaluated on accelerators:
-    #:   "emulated" — XLA's double-word fp64 emulation (exact baseline);
-    #:   "ozaki"    — error-free bf16 slicing on the MXU (ops/ozaki.py),
-    #:                ~2^-44 relative accuracy, several times faster on TPU;
-    #:   "ozaki_i8" — int8 slices (CPU-exact; BLOCKED on TPU — measured
-    #:                inexact and no faster there, see ops/ozaki.py notes);
-    #:   "auto"     — "ozaki" on TPU, "emulated" elsewhere.
+    #: how the dense path's fp64 A-matvecs are evaluated:
+    #:   "auto" / "emulated" — the exact fp64 product (``A @ x``);
+    #:   "ozaki"    — error-free bf16 slicing (ops/ozaki.py): bf16 dots
+    #:                with fp32 accumulation, ~2^-44 relative accuracy at
+    #:                the default 7 slices;
+    #:   "ozaki_i8" — int8 slices with int32 accumulation (ops/ozaki.py).
+    #: The sliced variants are explicit choices only; "auto" never picks
+    #: them.
     fp64_matvec: str = "auto"
 
     #: number of bf16 Ozaki slices per operand (None = ops/ozaki.N_SLICES
-    #: = 7, ~2^-44 operator accuracy, 49 MXU pass-pairs).  6 gives a
-    #: ~1.5e-11 relative operator from 36 pass-pairs — measured on a v5e
-    #: at tol=1e-8 (scripts/ablate_tolfloor.py runs with
-    #: MADIPM_OZAKI_SLICES=6, 2026-08-22): m=1024x8 425.7 -> 453.7 iter/s
-    #: (+6.6%, 176 iters both), m=2048x8 86.0 -> 93.4 (+8.6%), 8/8
-    #: everywhere, objectives unchanged, known-optimum certificate
-    #: IDENTICAL (16/16, worst rel-KKT 9.726e-9 — the binding error is
-    #: not the matvec).  5 slices (25 pass-pairs, bound ~2n*2^-40) was
-    #: then measured EQUALLY safe at n<=4096: certificate 16/16 at
-    #: 9.728e-9, objectives unchanged, iters 176->178, and 425.7 -> 488.3
-    #: iter/s (m=1024) / 86.0 -> 106.8 (m=2048).  The bench configs adopt
-    #: 5 for n <= 4096 and 6 above (the bound reaches 1.5e-8 by n=8192);
-    #: the library default stays 7 because the bound scales with n and 7
-    #: keeps the operator effectively exact for arbitrary problem sizes.
+    #: = 7, ~2^-44 operator accuracy, 49 pass-pairs).  Fewer slices give a
+    #: cheaper, less exact operator: the bound is ~2n*2^-(8S) relative
+    #: (5 slices reach ~3.7e-9 at n=2048 and ~1.5e-8 at n=8192), so the
+    #: default stays 7, which keeps the operator effectively exact for
+    #: arbitrary problem sizes.
     ozaki_slices: Optional[int] = None
 
     #: store only the FORWARD Ozaki slices and run A'-matvecs through the
     #: transposed chunked contraction (ops/ozaki.matvec_t) — halves the
-    #: slice HBM footprint (the m=4096 batch-size lever).  None = auto:
-    #: share when the slice pair would exceed ~1 GB.
+    #: slice device-memory footprint.  None = auto: share when the slice
+    #: pair would exceed ~1 GB.
     ozaki_share_slices: Optional[bool] = None
 
     def resolved_kkt(self, is_qp: bool) -> KKTSystem:

@@ -1,6 +1,6 @@
 """Solver status codes.
 
-TPU-native analogue of the MadNLP ``Status`` enum consumed by the reference
+JAX analogue of the MadNLP ``Status`` enum consumed by the reference
 solver (reference: src/solver.jl:362-418 maps exceptions/termination onto
 MadNLP status codes; ext/MadIPMMathOptInterfaceExt/MOI_wrapper.jl:131-160 maps
 them to MOI termination statuses).

@@ -3,12 +3,12 @@
 scripts/tables/generate_tables.jl equivalent.
 
 Reads two TSVs written by scripts/run_benchmarks.py (e.g. a CPU run and a
-TPU run), keeps instances where BOTH runs solved (the reference filters on
+GPU run), keeps instances where BOTH runs solved (the reference filters on
 its solver's success status, generate_tables.jl:68-72), and emits a Markdown table
 with per-instance total-time ratios plus summary statistics (solve rate,
 iteration totals, shifted-geometric-mean times).
 
-Usage: python scripts/make_tables.py results-cpu.txt results-tpu.txt [-o out.md]
+Usage: python scripts/make_tables.py results-cpu.txt results-gpu.txt [-o out.md]
 """
 
 from __future__ import annotations
@@ -52,9 +52,9 @@ def sgm(times, shift=1.0):
 def main():
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("baseline", help="TSV of the baseline run (reference-CPU role)")
-    ap.add_argument("candidate", help="TSV of the candidate run (TPU role)")
+    ap.add_argument("candidate", help="TSV of the candidate run (GPU role)")
     ap.add_argument("-o", "--out", default=None, help="output Markdown path (default stdout)")
-    ap.add_argument("--labels", nargs=2, default=("cpu", "tpu"))
+    ap.add_argument("--labels", nargs=2, default=("cpu", "gpu"))
     args = ap.parse_args()
 
     base = read_tsv(args.baseline)

@@ -15,7 +15,7 @@ scripts/make_tables.py.
 Two execution modes:
   --mode serial   one instance at a time (reference behavior; works on CPU)
   --mode batched  bucket instances by padded shape and solve each bucket as
-                  ONE vmapped device program (the TPU-native sweep,
+                  ONE vmapped device program (the batched sweep,
                   parallel/batch.py) — per-instance wall time is then the
                   bucket time / bucket size.
 
@@ -251,16 +251,6 @@ def main():
         regularization=mt.FixedRegularization(1e-8, -1e-8),
         print_level=mt.PrintLevel.ERROR,
     )
-    if not args.cpu and jax.default_backend() != "cpu":
-        opts.update(
-            linear_solver=mt.LinearSolver.CHOLESKY_INV,
-            factor_dtype="float32",
-            refinement_steps=12,
-            pcg_adaptive_tol=True,  # headline bench config (bench.py)
-            predictor_pcg_budget=0,  # preconditioner-only predictor (bench.py)
-            pcg_tol_cap=1e-6,  # round-3/5 corrector rtol clamps (bench.py)
-            pcg_tol_floor=1e-8,
-        )
 
     # --- Collect instances
     if args.synthetic or args.synthetic_qp:

@@ -48,10 +48,6 @@ def main():
     ap.add_argument("--out", default="results/known-optimum.txt")
     ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--sizes", default="128x256,256x512,512x1024,1024x2048")
-    ap.add_argument("--floor", type=float, default=None,
-                    help="pcg_tol_floor override (LP configs only)")
-    ap.add_argument("--cap", type=float, default=None,
-                    help="pcg_tol_cap override (LP configs only)")
     ap.add_argument(
         "--qp", action="store_true",
         help="sweep known-optimum convex QPs (Maros–Mészáros role) through "
@@ -66,8 +62,7 @@ def main():
     import madipm_tpu as mt
     from madipm_tpu.models.generators import known_optimum_lp, known_optimum_qp
 
-    backend = jax.default_backend()
-    log(f"backend={backend}")
+    log(f"backend={jax.default_backend()}")
 
     opts = dict(
         tol=1e-8,
@@ -75,18 +70,6 @@ def main():
         regularization=mt.FixedRegularization(1e-8, -1e-8),
         print_level=mt.PrintLevel.ERROR,
     )
-    if backend != "cpu" and not args.qp:
-        opts.update(
-            linear_solver=mt.LinearSolver.CHOLESKY_INV,
-            factor_dtype="float32",
-            refinement_steps=12,
-            pcg_adaptive_tol=True,
-            predictor_pcg_budget=0,  # adopted bench config (round 3)
-        )
-        if args.cap is not None:
-            opts["pcg_tol_cap"] = args.cap
-        if args.floor is not None:
-            opts["pcg_tol_floor"] = args.floor
 
     if args.qp:
         # Both QP formulations: K2 augmented LDL (the reference's default

@@ -1,4 +1,4 @@
-"""Unit tests of the ops layer: factorizations, refinement, Pallas kernel.
+"""Unit tests of the ops layer: factorizations, refinement, failure contract.
 
 Reference analogue: the KKT-system contract test
 (MadNLPTests.test_kkt_system, test/runtests.jl:166-180) — here each
@@ -14,7 +14,6 @@ import jax.numpy as jnp
 
 from madipm_tpu.ops import linalg
 from madipm_tpu.ops.block_chol import chol_inv, chol_inv_solve
-from madipm_tpu.ops.pallas_chol import pallas_chol_inv, pallas_cholesky
 
 
 def _spd(rng, n, cond=1e4, dtype=np.float64):
@@ -231,82 +230,6 @@ class TestMixedPrecisionPCG:
         assert st32.primal_feas < 1e-8 and st32.dual_feas < 1e-8
 
 
-class TestPallasCholesky:
-    @pytest.mark.parametrize("n", [128, 384])
-    def test_interpret_matches_dense(self, rng, n):
-        S = _spd(rng, n, dtype=np.float32)
-        S = S + 0.1 * jnp.eye(n, dtype=jnp.float32)
-        L = pallas_cholesky(S, interpret=True)
-        ref = jnp.linalg.cholesky(S.astype(jnp.float64))
-        assert float(jnp.max(jnp.abs(L.astype(jnp.float64) - ref))) < 1e-3
-
-    def test_batched(self, rng):
-        S = jnp.stack([_spd(rng, 128, dtype=np.float32) + 0.1 * jnp.eye(128, dtype=jnp.float32) for _ in range(3)])
-        L = pallas_cholesky(S, interpret=True)
-        for i in range(3):
-            err = float(jnp.max(jnp.abs(L[i] @ L[i].T - S[i])))
-            assert err < 1e-4
-
-    def test_size_limits(self):
-        with pytest.raises(ValueError, match="multiple"):
-            pallas_cholesky(jnp.eye(100), interpret=True)
-        with pytest.raises(ValueError, match="VMEM"):
-            pallas_cholesky(jnp.eye(2048), interpret=True)
-
-
-class TestPallasCholInv:
-    """The fused (L, L^-1) kernel the TPU factorize path dispatches to."""
-
-    @pytest.mark.parametrize("n", [128, 256, 384])
-    def test_inverse_factor(self, rng, n):
-        S = _spd(rng, n, dtype=np.float32) + 0.1 * jnp.eye(n, dtype=jnp.float32)
-        L, W = pallas_chol_inv(S, interpret=True)
-        ref = jnp.linalg.cholesky(S.astype(jnp.float64))
-        assert float(jnp.max(jnp.abs(L.astype(jnp.float64) - ref))) < 1e-3
-        # W = L^-1: W @ L = I
-        eye_err = float(jnp.max(jnp.abs(
-            W.astype(jnp.float64) @ ref - jnp.eye(n, dtype=jnp.float64))))
-        assert eye_err < 1e-3
-
-    def test_batched_matches_block_chol(self, rng):
-        from madipm_tpu.ops import block_chol
-
-        S = jnp.stack([
-            _spd(rng, 256, dtype=np.float32) + 0.1 * jnp.eye(256, dtype=jnp.float32)
-            for _ in range(3)
-        ])
-        L, W = pallas_chol_inv(S, interpret=True)
-        Lr, Wr = jax.vmap(block_chol.chol_inv)(S)
-        assert float(jnp.max(jnp.abs(L - Lr))) < 1e-2
-        assert float(jnp.max(jnp.abs(W - Wr))) < 1e-2
-
-    def test_nan_on_indefinite(self):
-        S = -jnp.eye(128, dtype=jnp.float32)
-        L, W = pallas_chol_inv(S, interpret=True)
-        assert bool(jnp.any(jnp.isnan(L)))
-
-
-def test_pallas_vmap_vmem_fallback():
-    """An outer vmap over a per-instance size beyond the batched VMEM budget
-    must lower through the XLA recursion instead of the batch grid."""
-    import numpy as np
-
-    from madipm_tpu.ops import pallas_chol
-
-    rng = np.random.default_rng(0)
-    n = pallas_chol.MAX_VMEM_N_INV_BATCHED + 128  # over the batched cap
-    assert n <= pallas_chol.MAX_VMEM_N_INV  # still valid unbatched
-    B = rng.standard_normal((2, n, 8))
-    S = jnp.asarray(B @ np.transpose(B, (0, 2, 1)) + 20.0 * np.eye(n))
-    S = S.astype(jnp.float32)
-    L, W = jax.vmap(pallas_chol.pallas_chol_inv)(S)
-    # L W = I on each instance
-    eye = jnp.eye(n, dtype=jnp.float32)
-    for i in range(2):
-        err = jnp.max(jnp.abs(L[i] @ W[i] - eye))
-        assert float(err) < 1e-2  # fp32 at n~900
-
-
 class TestCondensedKKT:
     """K1 contract: the condensed solve satisfies the augmented system
     [Sigma A'; A del_c][dx;dy] = [rx;rp] to the relaxation level
@@ -356,8 +279,8 @@ class TestCondensedKKT:
 
 
 class TestCondensedCholInv:
-    """K1 with the matmul-only inverse-factor backend (CHOLESKY_INV) — the
-    TPU fast path — agrees with the default Cholesky backend."""
+    """K1 with the matmul-only inverse-factor backend (CHOLESKY_INV)
+    agrees with the default Cholesky backend."""
 
     def test_qp_cholinv_matches_cholesky(self, rng):
         import madipm_tpu as mt
@@ -421,3 +344,15 @@ class TestFactorizeForceOk:
             cfg, prob, x, z, z, 1e-8, 0.0, force_ok=jnp.asarray(True)
         )
         assert bool(ok2) and float(dc2) == 0.0 and float(dw2) == 1e-8
+
+
+@pytest.mark.parametrize("linear_solver", ["cholesky", "cholesky_inv"])
+def test_factor_failure_contract(linear_solver):
+    """An indefinite system gives a not-ok factor (alone and per lane under
+    vmap) and the factorize retry loop raises the regularization — the
+    contract chip_smoke.py checks on the GPU, where cuSOLVER reports failure
+    through ``info``."""
+    import chip_smoke
+    from madipm_tpu.utils.options import LinearSolver
+
+    chip_smoke.check_factor_failure(LinearSolver(linear_solver))

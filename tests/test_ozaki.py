@@ -1,9 +1,9 @@
 """Tests of the Ozaki error-free bf16-sliced fp64 matvec (ops/ozaki.py).
 
 The reference runs fp64 natively on its GPUs (CUSPARSE SpMV operators,
-ext/MadIPMCUDAExt/cuda_wrapper.jl:43-94); on TPU fp64 is emulated ~24x
-slower than fp32, so the solver's exact-operator applications go through
-this slicing instead.  These tests pin the EXACTNESS invariants the
+ext/MadIPMCUDAExt/cuda_wrapper.jl:43-94); the slicing is an explicit
+alternative (``fp64_matvec="ozaki"``) that evaluates the same operator
+from low-precision dots.  These tests pin the EXACTNESS invariants the
 scheme relies on — they hold on any backend because every rounding step
 is explicit.
 """
@@ -115,7 +115,7 @@ class TestMatvec:
 
 class TestMatvecT:
     """Transposed matvec from the FORWARD slices (ozaki.matvec_t): the
-    shared-slice memory layout (halves slice HBM; the m=4096 lever)."""
+    shared-slice memory layout (halves the slice memory)."""
 
     @pytest.mark.parametrize("shape", [(128, 128), (256, 512), (384, 128)])
     def test_accuracy_vs_fp64(self, rng, shape):
@@ -305,9 +305,8 @@ class TestSolverIntegration:
 
 
 class TestSliceCountOption:
-    """IPMOptions.ozaki_slices plumbing (round-5: the bench configs run 5
-    slices at n<=4096 — 25 instead of 49 MXU pass-pairs — measured safe at
-    tol=1e-8 on hardware; library default stays 7)."""
+    """IPMOptions.ozaki_slices plumbing (5 slices = 25 instead of 49
+    pass-pairs; library default stays 7)."""
 
     def test_with_ozaki_n_slices(self, rng):
         from madipm_tpu.models.qp import pad_to_device
@@ -348,3 +347,22 @@ class TestSliceCountOption:
         assert st.success
         ref = scipy_linprog(c, A, b, lv, uv)
         assert abs(st.objective - ref.fun) < 2e-6 * (1 + abs(ref.fun))
+
+
+class TestMatvecSelection:
+    """make_config's fp64_matvec resolution: "auto" never slices."""
+
+    def test_auto_is_exact(self):
+        from madipm_tpu.solver import driver
+        from madipm_tpu.utils.options import load_options
+
+        cfg = driver.make_config(load_options(), is_qp=False)
+        assert not cfg.use_ozaki
+
+    @pytest.mark.parametrize("choice,variant", [("ozaki", "bf16"), ("ozaki_i8", "i8")])
+    def test_explicit_choice_accepted(self, choice, variant):
+        from madipm_tpu.solver import driver
+        from madipm_tpu.utils.options import load_options
+
+        cfg = driver.make_config(load_options(fp64_matvec=choice), is_qp=False)
+        assert cfg.use_ozaki and cfg.ozaki_variant == variant

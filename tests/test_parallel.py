@@ -200,7 +200,7 @@ class TestIntegratedDistFactor:
         np.testing.assert_allclose(s2.solution, s1.solution, atol=1e-6)
 
     def test_fp32_factor_parity(self):
-        # the TPU config: fp32 strip factor + fp64 PCG recovery
+        # the mixed-precision route: fp32 strip factor + fp64 PCG recovery
         solver, scale1, st1, scale2, st2 = self._solve_pair(
             96, 24, seed=78,
             linear_solver=mt.LinearSolver.CHOLESKY_INV,
@@ -268,7 +268,7 @@ class TestDistCondensed:
         assert stats.iter == ref.iter  # identical iterate path
 
     def test_dense_qp_fp32_strip_factor(self):
-        # TPU-flavored config: fp32 strip factor + fp64 PCG recovery.
+        # mixed-precision route: fp32 strip factor + fp64 PCG recovery.
         mesh = make_mesh(8, axis_names=("cols",))
         qp = self._qp_model(32)
         opts = dict(

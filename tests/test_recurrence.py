@@ -10,7 +10,7 @@ True) instead of recomputing both A-applications per trip.  These pin:
     ``A' dy`` on the NORMAL fp64-PCG path (the byproduct fast path) and
     the K1 path (the explicit fallback),
   * recurrence on/off solve parity: equal statuses, equal iteration
-    counts (+-1), objectives to 1e-7 under the TPU-like fp32-factor
+    counts (+-1), objectives to 1e-7 under the fp32-factor
     config (drift bounded by the CERT_PERIOD exact resync).
 """
 

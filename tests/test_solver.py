@@ -510,8 +510,7 @@ class TestFactorPrecision:
         """factor_precision relaxes the matmul precision of the fp32 factor /
         preconditioner path only — the fp64 PCG operator stays exact, so the
         converged answer must match the unrestricted solve.  (CPU executes
-        every precision identically; this pins the plumbing + semantics, the
-        TPU win is measured in scripts/ablate_precision.py.)"""
+        every precision identically; this pins the plumbing + semantics.)"""
         import madipm_tpu as mt
         from conftest import random_lp
 
@@ -616,7 +615,7 @@ class TestRankDeficient:
 
     def test_dependent_rows_fp32_factor(self):
         # Regression for ops/kkt.PRECOND_SHIFT: with an fp32 factor + fp64
-        # PCG (the TPU config), rank-deficient rows leave the Jacobi-scaled
+        # PCG (the mixed-precision route), rank-deficient rows leave the Jacobi-scaled
         # normal matrix singular up to del_c ~ 1e-8 and previously NaN'd
         # the step (ERROR_IN_STEP_COMPUTATION).  The preconditioner-only
         # 1e-6 shift must carry these to full tolerance.
@@ -674,7 +673,7 @@ class TestKnownOptimum:
         assert self._rel_kkt(qp, st) <= 1e-7
 
     def test_fp32_factor_config(self):
-        # the TPU benchmark config must hit the same certificate
+        # the fp32-factor route must hit the same certificate
         from madipm_tpu.models.generators import known_optimum_lp
 
         qp, info = known_optimum_lp(32, 96, seed=5, degenerate=True)
@@ -740,8 +739,7 @@ class TestKnownOptimumQP:
 class TestPredictorBudget:
     """predictor_pcg_budget (round-3 perf lever): the preconditioner-only
     affine solve must preserve convergence and objectives under the
-    fp32-factor config (the adopted TPU bench setting; measured +22-64%
-    iter/s on hardware, scripts/ablate_predictor.py)."""
+    fp32-factor route."""
 
     @pytest.mark.parametrize("budget", [0, 2])
     def test_fp32_factor_convergence(self, budget):
@@ -831,7 +829,7 @@ class TestCorrectorTolCap:
 class TestCorrectorTolFloor:
     """pcg_tol_floor (round-5 perf experiment): raising the corrector's
     adaptive-rtol LOWER clamp from the historical 1e-13 stops the late-phase
-    PCG over-solve (scripts/diag_trips.py) — convergence and the
+    PCG over-solve — convergence and the
     known-optimum certificate must survive the loosened floor."""
 
     @pytest.mark.parametrize("floor", [1e-13, 1e-10])
