@@ -24,8 +24,6 @@ wrapper (ops/linalg.refine) around the fp32 factor.
 
 from __future__ import annotations
 
-from functools import partial
-
 import jax
 import jax.numpy as jnp
 from jax import lax
@@ -47,38 +45,37 @@ def _tri_inv_base(L):
     s = L.shape[-1]
     if s == 1:
         return 1.0 / L
-    rows_c = jax.lax.broadcasted_iota(jnp.int32, (s, 1), 0)
-    cols_r = jax.lax.broadcasted_iota(jnp.int32, (1, s), 1)
-    eye = (rows_c == cols_r).astype(L.dtype)
-    dcol = jnp.sum(L * eye, axis=-1, keepdims=True)  # (s,1) diagonal
-    M = L / dcol  # unit lower: I - N
-    N = eye - M  # strictly lower
+    eye = jnp.eye(s, dtype=L.dtype)
+    d = jnp.sum(L * eye, axis=1)
+    N = eye - L / d[:, None]  # strictly lower
     S = eye + N
     R = N
     steps = max(0, (s - 1).bit_length() - 1)
     for _ in range(steps):
         R = jnp.matmul(R, R)
         S = S + jnp.matmul(R, S)
-    drow = jnp.sum(L * eye, axis=-2, keepdims=True)  # (1,s)
-    return S / drow
+    return S / d[None, :]
 
 
 def _chol_base(S):
     """Unblocked Cholesky of a small tile via masked Gaussian elimination.
 
     Returns (L, Linv).  NaNs propagate on non-SPD input (failure signal,
-    like jnp.linalg.cholesky).  Unrolled (s is a small static size).
+    like jnp.linalg.cholesky).  Unrolled (s is a small static size), so
+    each step is kept to a few ops: columns stay (s,1) and the factor is
+    accumulated by one-hot outer products.  A 1-D slice-and-stack form
+    lowers ``chol_inv`` at 512 to ~40% more HLO.
     """
     s = S.shape[-1]
     if s == 1:
         L = jnp.sqrt(S)
         return L, 1.0 / L
-    rows_c = jax.lax.broadcasted_iota(jnp.int32, (s, 1), 0)  # (s,1)
-    cols_r = jax.lax.broadcasted_iota(jnp.int32, (1, s), 1)  # (1,s)
+    rows_c = lax.broadcasted_iota(jnp.int32, (s, 1), 0)  # (s,1)
+    cols_r = lax.broadcasted_iota(jnp.int32, (1, s), 1)  # (1,s)
     M = S
     L = jnp.zeros_like(S)
     for j in range(s):
-        dinv = jax.lax.rsqrt(M[j : j + 1, j : j + 1])  # (1,1)
+        dinv = lax.rsqrt(M[j : j + 1, j : j + 1])  # (1,1)
         col = jnp.where(rows_c >= j, M[:, j : j + 1] * dinv, 0.0)  # (s,1)
         onehot = (cols_r == j).astype(S.dtype)  # (1,s)
         L = L + jnp.matmul(col, onehot)

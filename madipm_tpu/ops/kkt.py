@@ -51,11 +51,11 @@ class KKTConfig:
     refinement_steps: int = 2
     max_factor_trials: int = 3  # reference: src/linear_solver.jl:7
     #: precondition the fp64 PCG with an inner fp32 CG (flexible PCG,
-    #: Polak–Ribière).  Measured at the bench shape: the plain fp32-factor
+    #: Polak–Ribière).  At the bench shape the plain fp32-factor
     #: preconditioner already exits the fp64 PCG after 1-2 iterations, so
-    #: the inner CG adds overhead without removing fp64 pairs (22.1 vs
-    #: 30.2 iter/s) — default OFF; available for shapes/conditioning where
-    #: the factor alone is a weak preconditioner.
+    #: the inner CG adds overhead without removing fp64 pairs — default
+    #: OFF; available for shapes/conditioning where the factor alone is a
+    #: weak preconditioner.
     use_flex_pcg: bool = False
     #: jax.sharding.Mesh for the DISTRIBUTED single-instance path (NORMAL
     #: KKT only): column-sharded Schur assembly reduce-scattered into row

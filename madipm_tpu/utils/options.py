@@ -337,7 +337,7 @@ class IPMOptions:
     pcg_flex: bool = False
 
     #: how the dense path's fp64 A-matvecs are evaluated:
-    #:   "auto" / "emulated" — the exact fp64 product (``A @ x``);
+    #:   "auto"     — the exact fp64 product (``A @ x``);
     #:   "ozaki"    — error-free bf16 slicing (ops/ozaki.py): bf16 dots
     #:                with fp32 accumulation, ~2^-44 relative accuracy at
     #:                the default 7 slices;

@@ -60,3 +60,21 @@ def test_check_highs_accepts_solve_and_rejects_gap():
     off = dataclasses.replace(st, objective=st.objective * (1 + 1e-4) + 1e-4)
     with pytest.raises(AssertionError, match="HiGHS"):
         chip_smoke.check_highs(model, off)
+
+
+def test_bench_cross_check_uses_unperturbed_solve():
+    """bench.py's timed runs scale b; its HiGHS check must use the solve of
+    the suite as generated, which agrees with HiGHS to the tolerance."""
+    import bench
+
+    models = bench.make_suite(k=2, m=64, n=128, density=0.3)
+    opts = dict(chip_smoke.LP_OPTS, regularization=mt.FixedRegularization(1e-8, -1e-8),
+                print_level=mt.PrintLevel.ERROR)
+    _, _, timed, exact = bench.bench_device(models, opts)
+    _, _, objs = bench.bench_cpu_baseline(models)
+
+    def gap(stats):
+        return max(abs(s.objective - o) / max(1.0, abs(o)) for s, o in zip(stats, objs))
+
+    assert all(s.success for s in exact)
+    assert gap(exact) <= chip_smoke.HIGHS_TOL < gap(timed)

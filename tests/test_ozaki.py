@@ -266,7 +266,7 @@ class TestSolverIntegration:
             refinement_steps=6,
             pcg_adaptive_tol=True,
         )
-        st_em = mt.madipm(mdl, fp64_matvec="emulated", **common)
+        st_em = mt.madipm(mdl, fp64_matvec="auto", **common)
         st_oz = mt.madipm(mdl, fp64_matvec="ozaki", **common)
         assert st_em.success and st_oz.success
         assert st_oz.iter <= st_em.iter + 2  # same iteration behavior
@@ -296,7 +296,7 @@ class TestSolverIntegration:
             c=c, A=A, lcon=b, ucon=b, lvar=np.zeros(n),
             uvar=np.full(n, np.inf), Q=Q,
         )
-        st_em = mt.madipm(mdl, fp64_matvec="emulated", print_level=mt.PrintLevel.ERROR)
+        st_em = mt.madipm(mdl, fp64_matvec="auto", print_level=mt.PrintLevel.ERROR)
         st_oz = mt.madipm(mdl, fp64_matvec="ozaki", print_level=mt.PrintLevel.ERROR)
         assert st_em.success and st_oz.success
         assert abs(st_oz.objective - st_em.objective) <= 1e-7 * max(
@@ -366,3 +366,11 @@ class TestMatvecSelection:
 
         cfg = driver.make_config(load_options(fp64_matvec=choice), is_qp=False)
         assert cfg.use_ozaki and cfg.ozaki_variant == variant
+
+    @pytest.mark.parametrize("choice", ["emulated", "exact"])
+    def test_other_choice_rejected(self, choice):
+        from madipm_tpu.solver import driver
+        from madipm_tpu.utils.options import load_options
+
+        with pytest.raises(ValueError, match="fp64_matvec must be 'auto'"):
+            driver.make_config(load_options(fp64_matvec=choice), is_qp=False)
